@@ -7,7 +7,7 @@ reports instead of delayed SIGSEGVs elsewhere in the process (e.g. inside a
 later XLA compile).
 
 Usage (library must be built with -fsanitize=address):
-    make -B -C lbaudiodetective_tpu/io/native CXXFLAGS="-O1 -g \
+    make -B -C lbaudiodetective/io/native CXXFLAGS="-O1 -g \
         -fsanitize=address -fPIC -shared -std=c++17 -Wall"
     LD_PRELOAD=$(gcc -print-file-name=libasan.so) \
         ASAN_OPTIONS=detect_leaks=0 python scripts/asan_native_decoder.py
@@ -25,12 +25,12 @@ import numpy as np
 
 sys.path.insert(0, "/root/repo")
 
-from lbaudiodetective_tpu.errors import AudioDetectiveError  # noqa: E402
-from lbaudiodetective_tpu.io.aiff import write_aiff  # noqa: E402
-from lbaudiodetective_tpu.io.au import write_au  # noqa: E402
-from lbaudiodetective_tpu.io.g711 import encode_mulaw  # noqa: E402
-from lbaudiodetective_tpu.io.native import binding  # noqa: E402
-from lbaudiodetective_tpu.io.wav import write_wav  # noqa: E402
+from lbaudiodetective.errors import AudioDetectiveError  # noqa: E402
+from lbaudiodetective.io.aiff import write_aiff  # noqa: E402
+from lbaudiodetective.io.au import write_au  # noqa: E402
+from lbaudiodetective.io.g711 import encode_mulaw  # noqa: E402
+from lbaudiodetective.io.native import binding  # noqa: E402
+from lbaudiodetective.io.wav import write_wav  # noqa: E402
 
 CORPUS = pathlib.Path("/root/reference/LBAudioDetectiveTests/Birds")
 

@@ -11,9 +11,9 @@ import time
 
 import numpy as np
 
-from lbaudiodetective_tpu.config import FingerprintConfig
-from lbaudiodetective_tpu.io.decode import decode_audio_file
-from lbaudiodetective_tpu.oracle.pipeline import oracle_fingerprint, oracle_match_fingerprints
+from lbaudiodetective.config import FingerprintConfig
+from lbaudiodetective.io.decode import decode_audio_file
+from lbaudiodetective.oracle.pipeline import oracle_fingerprint, oracle_match_fingerprints
 
 BIRDS = ["BlackBird", "BlueTit", "Chaffinch", "Sparrow", "GreatTit",
          "Crow", "Wren", "Chiffchaff", "Kestrel", "Pigeon"]

@@ -26,11 +26,11 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from lbaudiodetective_tpu.io import caf
-from lbaudiodetective_tpu.io.decode import DecodedAudio, decode_audio_file
-from lbaudiodetective_tpu.io.resample import resample_rational
-from lbaudiodetective_tpu.config import FingerprintConfig
-from lbaudiodetective_tpu.oracle.pipeline import (
+from lbaudiodetective.io import caf
+from lbaudiodetective.io.decode import DecodedAudio, decode_audio_file
+from lbaudiodetective.io.resample import resample_rational
+from lbaudiodetective.config import FingerprintConfig
+from lbaudiodetective.oracle.pipeline import (
     oracle_fingerprint, oracle_match_fingerprints)
 
 BASE = pathlib.Path("/root/reference/LBAudioDetectiveTests/Birds")

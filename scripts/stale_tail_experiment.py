@@ -22,10 +22,10 @@ jax.config.update("jax_platforms", "cpu")
 REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-from lbaudiodetective_tpu.config import FingerprintConfig
-from lbaudiodetective_tpu.io.decode import decode_audio_file
-from lbaudiodetective_tpu.oracle.pipeline import oracle_fingerprint
-from lbaudiodetective_tpu.ops.match import match_fingerprints
+from lbaudiodetective.config import FingerprintConfig
+from lbaudiodetective.io.decode import decode_audio_file
+from lbaudiodetective.oracle.pipeline import oracle_fingerprint
+from lbaudiodetective.ops.match import match_fingerprints
 
 BIRDS = ["BlackBird", "BlueTit", "Chaffinch", "Sparrow", "GreatTit",
          "Crow", "Wren", "Chiffchaff", "Kestrel", "Pigeon"]

@@ -28,7 +28,7 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_cpu_collectives_implementation", "gloo")
 
-    from lbaudiodetective_tpu.parallel import distributed
+    from lbaudiodetective.parallel import distributed
 
     distributed.initialize(coordinator_address=f"127.0.0.1:{port}",
                            num_processes=nprocs, process_id=pid)
@@ -38,10 +38,10 @@ def main():
     import jax.numpy as jnp
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    from lbaudiodetective_tpu.config import FingerprintConfig
-    from lbaudiodetective_tpu.parallel.sharded import match_library_sharded
-    from lbaudiodetective_tpu.utils import packing
-    from lbaudiodetective_tpu.utils.serialize import load_library_shard
+    from lbaudiodetective.config import FingerprintConfig
+    from lbaudiodetective.parallel.sharded import match_library_sharded
+    from lbaudiodetective.utils import packing
+    from lbaudiodetective.utils.serialize import load_library_shard
 
     cfg = FingerprintConfig()
     # Shard s of the checkpoint lives on global device s; this process's
@@ -86,7 +86,7 @@ def main():
     # Ring all-pairs across the PROCESS boundary: query blocks rotate around
     # the 4-device mesh via lax.ppermute (two of the hops cross processes
     # over gloo).  Every valid entry must self-match at ~1 on the diagonal.
-    from lbaudiodetective_tpu.parallel.sharded import ring_all_pairs_scores
+    from lbaudiodetective.parallel.sharded import ring_all_pairs_scores
 
     ring = ring_all_pairs_scores(lib_pos, lib_neg, lib_cnt, mesh)
     jax.block_until_ready(ring)

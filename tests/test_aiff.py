@@ -5,10 +5,10 @@ import struct
 import numpy as np
 import pytest
 
-from lbaudiodetective_tpu.errors import DecodeError, UnsupportedFormatError
-from lbaudiodetective_tpu.io.aiff import (_read_extended80, _write_extended80,
-                                          read_aiff, write_aiff)
-from lbaudiodetective_tpu.io.decode import decode_audio_file
+from lbaudiodetective.errors import DecodeError, UnsupportedFormatError
+from lbaudiodetective.io.aiff import (_read_extended80, _write_extended80,
+                                      read_aiff, write_aiff)
+from lbaudiodetective.io.decode import decode_audio_file
 
 
 def _sine(n=4410, rate=44100.0, f=440.0):
@@ -35,7 +35,7 @@ def test_roundtrip_16bit(tmp_path):
 def test_matches_wav_decode_exactly(tmp_path):
     """The same 16-bit samples through AIFF (big-endian) and WAV
     (little-endian) decode bit-identically."""
-    from lbaudiodetective_tpu.io.wav import write_wav
+    from lbaudiodetective.io.wav import write_wav
 
     x = _sine()
     pa, pw = str(tmp_path / "a.aiff"), str(tmp_path / "a.wav")
@@ -113,8 +113,8 @@ def test_corpus_clip_via_aiff_same_score(tmp_path):
     """Re-containering a corpus clip as AIFF must not change its match
     score (decode-path equivalence at the API level)."""
     from tests.conftest import corpus_path
-    from lbaudiodetective_tpu.io.caf import read_caf
-    from lbaudiodetective_tpu.models.detective import AudioDetective
+    from lbaudiodetective.io.caf import read_caf
+    from lbaudiodetective.models.detective import AudioDetective
 
     samples, rate = read_caf(corpus_path("Wren_eql"))
     p = str(tmp_path / "wren_eql.aiff")
@@ -138,7 +138,7 @@ def test_ragged_tail_truncation(tmp_path):
     y, _ = read_aiff(p)
     assert 0 < y.shape[0] < 64
 
-    from lbaudiodetective_tpu.io.wav import read_wav, write_wav
+    from lbaudiodetective.io.wav import read_wav, write_wav
 
     pw = str(tmp_path / "full.wav")
     write_wav(pw, x, 44100.0)

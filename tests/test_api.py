@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from lbaudiodetective_tpu import compat
-from lbaudiodetective_tpu.models.detective import AudioDetective
-from lbaudiodetective_tpu.models.fingerprint import Fingerprint
+from lbaudiodetective import compat
+from lbaudiodetective.models.detective import AudioDetective
+from lbaudiodetective.models.fingerprint import Fingerprint
 from tests.conftest import corpus_path
 
 
@@ -91,7 +91,7 @@ def test_compat_names_roundtrip():
     s = compat.stringFromFingerprint(fp)
     assert set(s) <= {"0", "1", "+"}
     assert s.split("+")[0] != "0" * 200          # non-degenerate bits
-    from lbaudiodetective_tpu.models.fingerprint import Fingerprint
+    from lbaudiodetective.models.fingerprint import Fingerprint
     assert Fingerprint.from_string(s) == fp
     match = compat.LBAudioDetectiveCompareAudioURLs(
         d, corpus_path("Pigeon"), corpus_path("Pigeon_eql"), 0)

@@ -5,9 +5,9 @@ import struct
 import numpy as np
 import pytest
 
-from lbaudiodetective_tpu.errors import DecodeError, UnsupportedFormatError
-from lbaudiodetective_tpu.io.au import read_au, write_au
-from lbaudiodetective_tpu.io.decode import decode_audio_file
+from lbaudiodetective.errors import DecodeError, UnsupportedFormatError
+from lbaudiodetective.io.au import read_au, write_au
+from lbaudiodetective.io.decode import decode_audio_file
 
 
 def _sine(n=4410, rate=44100.0, f=440.0):
@@ -39,14 +39,14 @@ def test_roundtrip_16bit(tmp_path):
 def test_matches_aiff_decode_exactly(tmp_path):
     """The same 16-bit big-endian samples through AU and AIFF decode
     bit-identically, and decode_audio_file dispatches on the .snd magic."""
-    from lbaudiodetective_tpu.io.aiff import write_aiff
+    from lbaudiodetective.io.aiff import write_aiff
 
     x = _sine()
     pu, pa = str(tmp_path / "a.au"), str(tmp_path / "a.aiff")
     write_au(pu, x, 44100.0)
     write_aiff(pa, x, 44100.0)
     yu, _ = read_au(pu)
-    ya, _ = __import__("lbaudiodetective_tpu.io.aiff",
+    ya, _ = __import__("lbaudiodetective.io.aiff",
                        fromlist=["read_aiff"]).read_aiff(pa)
     np.testing.assert_array_equal(yu, ya)
     d = decode_audio_file(pu)          # dispatches on the .snd magic
@@ -80,8 +80,8 @@ def test_encodings(tmp_path):
 def test_g711_matches_table_decode(tmp_path):
     """AU mu-law/A-law payloads decode through the same G.711 tables as the
     CAF/WAV/AIFF paths (bit-identical)."""
-    from lbaudiodetective_tpu.io.g711 import (decode_alaw, decode_mulaw,
-                                              encode_alaw, encode_mulaw)
+    from lbaudiodetective.io.g711 import (decode_alaw, decode_mulaw,
+                                          encode_alaw, encode_mulaw)
 
     x = _sine(512)
     for enc, enc_fn, dec_fn in [(1, encode_mulaw, decode_mulaw),
@@ -138,8 +138,8 @@ def test_corpus_clip_via_au_same_score(tmp_path):
     """Re-containering a corpus clip as AU must not change its match score
     (decode-path equivalence at the API level)."""
     from tests.conftest import corpus_path
-    from lbaudiodetective_tpu.io.caf import read_caf
-    from lbaudiodetective_tpu.models.detective import AudioDetective
+    from lbaudiodetective.io.caf import read_caf
+    from lbaudiodetective.models.detective import AudioDetective
 
     samples, rate = read_caf(corpus_path("Wren_eql"))
     p = str(tmp_path / "wren_eql.au")

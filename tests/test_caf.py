@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from lbaudiodetective_tpu.io import caf
+from lbaudiodetective.io import caf
 from tests.conftest import corpus_path
 
 

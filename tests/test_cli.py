@@ -6,7 +6,7 @@ import shutil
 
 import pytest
 
-from lbaudiodetective_tpu.__main__ import main
+from lbaudiodetective.__main__ import main
 from tests.conftest import CORPUS as BIRDS_DIR
 
 
@@ -81,9 +81,9 @@ def test_client_server_roundtrip(tiny_corpus, tmp_path, capsys):
     clip with the client subcommand, parse the identification JSON."""
     import threading
 
-    from lbaudiodetective_tpu.models.library import FingerprintLibrary
-    from lbaudiodetective_tpu.serving import IdentificationService, make_server
-    from lbaudiodetective_tpu.__main__ import _load_library
+    from lbaudiodetective.models.library import FingerprintLibrary
+    from lbaudiodetective.serving import IdentificationService, make_server
+    from lbaudiodetective.__main__ import _load_library
 
     lib_path = str(tmp_path / "lib.npz")
     assert main(["enroll", str(tiny_corpus), "-o", lib_path]) == 0
@@ -129,7 +129,7 @@ def test_identify_negative_top_k(tiny_corpus, tmp_path, capsys):
 
 def test_serve_flags_reach_service(tiny_corpus, tmp_path, capsys, monkeypatch):
     """The production serving knobs flow from the CLI into the service."""
-    from lbaudiodetective_tpu import serving as serving_mod
+    from lbaudiodetective import serving as serving_mod
 
     lib = str(tmp_path / "lib.npz")
     assert main(["enroll", str(tiny_corpus), "-o", lib]) == 0
@@ -157,7 +157,7 @@ def test_serve_sessions_dir_roundtrip(tiny_corpus, tmp_path, capsys,
                                       monkeypatch):
     """`serve --sessions-dir`: live sessions opened during one server run
     are checkpointed at shutdown and restored by the next boot."""
-    from lbaudiodetective_tpu import serving as serving_mod
+    from lbaudiodetective import serving as serving_mod
 
     lib = str(tmp_path / "lib.npz")
     assert main(["enroll", str(tiny_corpus), "-o", lib]) == 0

@@ -1,5 +1,5 @@
 """Automated C-API surface coverage: every public function declared in the
-reference's three headers must exist 1:1 in lbaudiodetective_tpu.compat
+reference's three headers must exist 1:1 in lbaudiodetective.compat
 (plus the essay-only streaming functions).  This is the machine-checked
 version of the SURVEY §2.3 'Python API parity layer' deliverable."""
 
@@ -9,7 +9,7 @@ import re
 import numpy as np
 import pytest
 
-from lbaudiodetective_tpu import compat
+from lbaudiodetective import compat
 from tests.conftest import corpus_path
 
 HEADERS = [

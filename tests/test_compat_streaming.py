@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from lbaudiodetective_tpu import compat
-from lbaudiodetective_tpu.streaming.runtime import StreamingDetective
+from lbaudiodetective import compat
+from lbaudiodetective.streaming.runtime import StreamingDetective
 
 
 def test_streaming_compat_lifecycle():
@@ -32,8 +32,8 @@ def test_streaming_thread_fuzz():
 
     import numpy as np
 
-    from lbaudiodetective_tpu.config import FingerprintConfig
-    from lbaudiodetective_tpu.streaming.runtime import StreamingDetective
+    from lbaudiodetective.config import FingerprintConfig
+    from lbaudiodetective.streaming.runtime import StreamingDetective
 
     cfg = FingerprintConfig(hop_domain="proc")
     det = StreamingDetective(config=cfg, chunk_size=512)
@@ -80,8 +80,8 @@ def test_streaming_thread_fuzz():
 
     assert not errors, errors
     # Post-fuzz determinism: a fresh run still matches the offline pipeline.
-    from lbaudiodetective_tpu.io.decode import DecodedAudio
-    from lbaudiodetective_tpu.ops.extract import extract_fingerprint
+    from lbaudiodetective.io.decode import DecodedAudio
+    from lbaudiodetective.ops.extract import extract_fingerprint
 
     n = cfg.rows_per_frame * int(cfg.hop_in_processing_samples) + cfg.window_size
     n += (-n) % 512

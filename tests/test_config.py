@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from lbaudiodetective_tpu.config import FingerprintConfig
+from lbaudiodetective.config import FingerprintConfig
 
 
 def test_default_band_ranges_exact():
@@ -36,7 +36,7 @@ def test_spectrum_scale_divisor():
 def test_hop_domains():
     cfg = FingerprintConfig()
     assert cfg.hop_domain == "file"
-    # TPU-native spec: the fractional file-domain hop (7.99927) quantises to 8.
+    # Spec choice: the fractional file-domain hop (7.99927) quantises to 8.
     assert cfg.integer_hop and cfg.hop_in_processing_samples == 8.0
     faithful = cfg.with_updates(integer_hop=False)
     assert abs(faithful.hop_in_processing_samples - 64 * 5512.0 / 44100.0) < 1e-9
@@ -68,13 +68,13 @@ def test_unvalidated_precision_warns_on_accelerator():
     identification diverges from goldens (VERDICT r2 weakness 2)."""
     import warnings
 
-    from lbaudiodetective_tpu.config import FingerprintConfig
+    from lbaudiodetective.config import FingerprintConfig
 
     for tier in ("default", "medium"):
         cfg = FingerprintConfig(matmul_precision=tier)
         assert not cfg.identification_validated
         with pytest.warns(UserWarning, match="NOT validated"):
-            cfg.warn_if_unvalidated_for_identification(backend="tpu")
+            cfg.warn_if_unvalidated_for_identification(backend="gpu")
         # CPU backends run full f32 contractions -> exempt.
         with warnings.catch_warnings():
             warnings.simplefilter("error")
@@ -84,4 +84,19 @@ def test_unvalidated_precision_warns_on_accelerator():
         assert cfg.identification_validated
         with warnings.catch_warnings():
             warnings.simplefilter("error")
-            cfg.warn_if_unvalidated_for_identification(backend="tpu")
+            cfg.warn_if_unvalidated_for_identification(backend="gpu")
+
+
+@pytest.mark.parametrize("tier,want", [
+    ("default", "DEFAULT"), ("medium", "HIGH"), ("high", "HIGHEST"),
+    ("highest", "HIGHEST")])
+def test_precision_tier_mapping(tier, want):
+    """"high" (the default) maps to HIGHEST: on a GPU, Precision.HIGH still
+    lets f32 products run in TF32, which flips fingerprint bits."""
+    import jax
+
+    from lbaudiodetective.config import FingerprintConfig
+
+    cfg = FingerprintConfig(matmul_precision=tier)
+    assert cfg.precision == getattr(jax.lax.Precision, want)
+    assert cfg.identification_validated == (want == "HIGHEST")

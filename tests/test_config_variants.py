@@ -5,12 +5,12 @@ LBAudioDetective.h:144-201)."""
 import numpy as np
 import pytest
 
-from lbaudiodetective_tpu.config import FingerprintConfig
-from lbaudiodetective_tpu.io.decode import DecodedAudio
-from lbaudiodetective_tpu.oracle.pipeline import (
+from lbaudiodetective.config import FingerprintConfig
+from lbaudiodetective.io.decode import DecodedAudio
+from lbaudiodetective.oracle.pipeline import (
     oracle_fingerprint, oracle_match_fingerprints)
-from lbaudiodetective_tpu.ops.extract import extract_fingerprint
-from lbaudiodetective_tpu.ops.match import match_fingerprints
+from lbaudiodetective.ops.extract import extract_fingerprint
+from lbaudiodetective.ops.match import match_fingerprints
 
 VARIANTS = [
     FingerprintConfig(window_size=1024),
@@ -54,10 +54,10 @@ def test_variant_jax_matches_oracle(cfg):
 
 def test_low_min_frequency_routes_to_xla():
     """Band edges at/below bin 0 (vDSP packed DC slot, or the Q6 int(x-1.0)
-    truncation's -1) must gate the matmul-DFT/conv/Pallas specialisations off
+    truncation's -1) must gate the matmul-DFT/conv specialisations off
     and raise in the paths that cannot handle them (ADVICE r1)."""
-    from lbaudiodetective_tpu.ops.extract import _rows_impl_auto
-    from lbaudiodetective_tpu.ops.spectral import (
+    from lbaudiodetective.ops.extract import _rows_impl_auto
+    from lbaudiodetective.ops.spectral import (
         bands_in_interior, conv_band_rows)
 
     cfg = FingerprintConfig(min_frequency=2.0)     # lo bin = -1
@@ -66,9 +66,9 @@ def test_low_min_frequency_routes_to_xla():
     import jax.numpy as jnp
     with pytest.raises(ValueError):
         conv_band_rows(jnp.zeros((1, 4096), jnp.float32), cfg, 2)
-    from lbaudiodetective_tpu.ops.pallas.fused_rows import _kernel_constants
+    from lbaudiodetective.ops.dft import band_stage_constants
     with pytest.raises(ValueError):
-        _kernel_constants(cfg)
+        band_stage_constants(cfg)
     # The xla path still runs end-to-end and matches the oracle.
     a = _clip(cfg, seconds=2.0, seed=7)
     jp = extract_fingerprint(a, cfg)

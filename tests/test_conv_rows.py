@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from lbaudiodetective_tpu.config import FingerprintConfig
-from lbaudiodetective_tpu.ops import spectral
-from lbaudiodetective_tpu.ops.extract import required_padded_length
+from lbaudiodetective.config import FingerprintConfig
+from lbaudiodetective.ops import spectral
+from lbaudiodetective.ops.extract import required_padded_length
 
 
 @pytest.mark.parametrize("hop_domain", ["file", "proc"])

@@ -14,26 +14,24 @@ essay; diag values are % match scores:
   _blu2   8/10,  diag 51.2-75.0 (Crow max)      diag 50.5-72.7 (Crow max)
   _rec    4/10,  diag 52.1-55.4                 2/10,  diag 49.6-53.4
 
-Fixture integrity: the fingerprint cache key includes a content hash of the
-whole extraction pipeline's source (conftest.config_cache_key), so mutating
-any of ops/oracle/io/config invalidates the committed fixtures and these
-matrices recompute live.
+Fixture integrity: the fingerprint cache key includes a digest of the live
+pipeline's fingerprints on seeded clips (conftest.fixture_key), so a change
+to the extracted bits invalidates the committed fixtures and these matrices
+recompute live.
 """
 
 import numpy as np
 import pytest
 
 from tests.conftest import BIRDS, CACHE
-from lbaudiodetective_tpu.ops.extract import extract_fingerprint
-from lbaudiodetective_tpu.ops.match import match_fingerprints
+from lbaudiodetective.ops.extract import extract_fingerprint
+from lbaudiodetective.ops.match import match_fingerprints
 
 
 @pytest.fixture(scope="module")
-def jax_fingerprints(decoded_corpus, default_config):
+def jax_fingerprints(decoded_corpus, default_config, fixture_key):
     """name -> (pos, neg) JAX-extracted fingerprints, disk-cached."""
-    from tests.conftest import config_cache_key
-
-    key = config_cache_key()
+    key = fixture_key
     out = {}
     for name in decoded_corpus.keys():
         cache_file = CACHE / f"jaxfp_{key}_{name}.npz"
@@ -125,9 +123,9 @@ def test_chaffinch_prefix_crop_scores_like_essay(jax_fingerprints, default_confi
     bit-exact prefix crop — what the essay's Test 1 actually measured — this
     pipeline scores inside the essay's 93-99 range, proving no
     Chaffinch-specific robustness gap."""
-    from lbaudiodetective_tpu.io import caf
-    from lbaudiodetective_tpu.io.decode import DecodedAudio
-    from lbaudiodetective_tpu.io.resample import resample_rational
+    from lbaudiodetective.io import caf
+    from lbaudiodetective.io.decode import DecodedAudio
+    from lbaudiodetective.io.resample import resample_rational
     from tests.conftest import corpus_path
 
     a44, _ = caf.read_caf(corpus_path("Chaffinch"))

@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from lbaudiodetective_tpu.oracle.pipeline import oracle_match_fingerprints
-from lbaudiodetective_tpu.parallel.dedup import ring_dedup_topk
-from lbaudiodetective_tpu.parallel.mesh import make_mesh
+from lbaudiodetective.oracle.pipeline import oracle_match_fingerprints
+from lbaudiodetective.parallel.dedup import ring_dedup_topk
+from lbaudiodetective.parallel.mesh import make_mesh
 from tests.test_match import random_fp
 
 

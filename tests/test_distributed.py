@@ -8,10 +8,10 @@ import pytest
 
 import jax
 
-from lbaudiodetective_tpu.config import FingerprintConfig
-from lbaudiodetective_tpu.models.fingerprint import Fingerprint
-from lbaudiodetective_tpu.parallel import distributed
-from lbaudiodetective_tpu.utils.serialize import load_library, save_library
+from lbaudiodetective.config import FingerprintConfig
+from lbaudiodetective.models.fingerprint import Fingerprint
+from lbaudiodetective.parallel import distributed
+from lbaudiodetective.utils.serialize import load_library, save_library
 
 
 def test_initialize_single_process_is_noop(monkeypatch):
@@ -45,7 +45,7 @@ def test_shard_bounds_cover_and_partition():
 def test_rejoin_reloads_shard_and_scores_match(tmp_path, monkeypatch):
     """Failure-recovery flow (SURVEY §5): a host re-joins (mocked), reloads
     its library shard from the checkpoint, and produces identical scores."""
-    from lbaudiodetective_tpu.ops.match_packed import match_one_vs_many_packed
+    from lbaudiodetective.ops.match_packed import match_one_vs_many_packed
 
     rng = np.random.default_rng(77)
     cfg = FingerprintConfig()
@@ -86,8 +86,8 @@ def test_two_process_library_sharded_match(tmp_path):
     import subprocess
     import sys
 
-    from lbaudiodetective_tpu.ops.match import match_one_vs_many_padded
-    from lbaudiodetective_tpu.utils.serialize import save_library_sharded
+    from lbaudiodetective.ops.match import match_one_vs_many_padded
+    from lbaudiodetective.utils.serialize import save_library_sharded
 
     rng = np.random.default_rng(123)
     cfg = FingerprintConfig()

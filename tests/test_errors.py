@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from lbaudiodetective_tpu import compat, errors
-from lbaudiodetective_tpu.io.caf import read_caf
-from lbaudiodetective_tpu.io.wav import read_wav
+from lbaudiodetective import compat, errors
+from lbaudiodetective.io.caf import read_caf
+from lbaudiodetective.io.wav import read_wav
 
 
 def test_hierarchy_and_status_codes():

@@ -12,9 +12,9 @@ import sys
 import numpy as np
 import pytest
 
-from lbaudiodetective_tpu.errors import (DecodeError, UnsupportedFormatError)
-from lbaudiodetective_tpu.io import external
-from lbaudiodetective_tpu.io.decode import decode_audio_file
+from lbaudiodetective.errors import (DecodeError, UnsupportedFormatError)
+from lbaudiodetective.io import external
+from lbaudiodetective.io.decode import decode_audio_file
 
 
 @pytest.fixture(autouse=True)
@@ -41,7 +41,7 @@ def test_mocked_decoder_roundtrip(tmp_path, monkeypatch):
     flow through decode_audio_file: transcode -> our WAV reader -> resample."""
     script = (
         "import sys, numpy as np\n"
-        "from lbaudiodetective_tpu.io.wav import write_wav\n"
+        "from lbaudiodetective.io.wav import write_wav\n"
         "x = (0.5 * np.sin(2 * np.pi * 440.0 * np.arange(22050) / 22050.0)"
         ").astype(np.float32)\n"
         "write_wav(sys.argv[2], x, 22050.0)\n"
@@ -90,7 +90,7 @@ def test_live_external_decoder_roundtrip(tmp_path):
     (high correlation; MP3 is lossy so not bit-exact)."""
     import subprocess
 
-    from lbaudiodetective_tpu.io.wav import write_wav
+    from lbaudiodetective.io.wav import write_wav
 
     rng = np.random.default_rng(0)
     t = np.arange(44100) / 44100.0

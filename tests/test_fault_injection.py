@@ -7,9 +7,9 @@ truncated-but-parseable inputs degrade gracefully (shorter fingerprints)."""
 import numpy as np
 import pytest
 
-from lbaudiodetective_tpu.io import caf
-from lbaudiodetective_tpu.io.decode import decode_audio_file
-from lbaudiodetective_tpu.models.detective import AudioDetective
+from lbaudiodetective.io import caf
+from lbaudiodetective.io.decode import decode_audio_file
+from lbaudiodetective.models.detective import AudioDetective
 from tests.conftest import corpus_path
 
 
@@ -54,7 +54,7 @@ def test_garbage_bytes_raise(tmp_path):
 def test_empty_audio_produces_empty_fingerprint(tmp_path):
     """A clip shorter than one frame yields an empty fingerprint, and
     comparing against it scores 0 (reference: imageWidth < 128 -> no loop)."""
-    from lbaudiodetective_tpu.io.caf import IMA4_PACKET_BYTES
+    from lbaudiodetective.io.caf import IMA4_PACKET_BYTES
     import struct
 
     # Minimal valid CAF with one IMA4 packet (64 frames ~ 1.5 ms).
@@ -81,10 +81,10 @@ def test_fuzz_truncation_and_mutation_all_containers(tmp_path):
     struct.error / IndexError / ValueError from the parser internals."""
     import struct
 
-    from lbaudiodetective_tpu.errors import AudioDetectiveError
-    from lbaudiodetective_tpu.io.aiff import write_aiff
-    from lbaudiodetective_tpu.io.g711 import encode_mulaw
-    from lbaudiodetective_tpu.io.wav import write_wav
+    from lbaudiodetective.errors import AudioDetectiveError
+    from lbaudiodetective.io.aiff import write_aiff
+    from lbaudiodetective.io.g711 import encode_mulaw
+    from lbaudiodetective.io.wav import write_wav
 
     rng = np.random.default_rng(99)
     x = (0.4 * np.sin(2 * np.pi * 440.0 *
@@ -103,7 +103,7 @@ def test_fuzz_truncation_and_mutation_all_containers(tmp_path):
     body = b"WAVE" + fmt + data
     samples["wav_ulaw"] = b"RIFF" + struct.pack("<I", len(body)) + body
     samples["caf_ima4"] = open(corpus_path("Wren_eql"), "rb").read()
-    from lbaudiodetective_tpu.io.au import write_au
+    from lbaudiodetective.io.au import write_au
     p = tmp_path / "t.au"
     write_au(str(p), x, 8000.0)
     samples["au_pcm"] = p.read_bytes()
@@ -120,9 +120,9 @@ def test_fuzz_truncation_and_mutation_all_containers(tmp_path):
             return
         assert out.dtype == np.float32
 
-    from lbaudiodetective_tpu.io.aiff import read_aiff as _aiff
-    from lbaudiodetective_tpu.io.au import read_au as _au
-    from lbaudiodetective_tpu.io.wav import read_wav as _wav
+    from lbaudiodetective.io.aiff import read_aiff as _aiff
+    from lbaudiodetective.io.au import read_au as _au
+    from lbaudiodetective.io.wav import read_wav as _wav
     _caf_read = caf.read_caf
 
     for name, blob in samples.items():
@@ -145,10 +145,10 @@ def _native_fuzz_corpus(tmp_path):
     (plus crafted zero-channel / tiny-bits CAF descs) as files on disk."""
     import struct
 
-    from lbaudiodetective_tpu.io.aiff import write_aiff
-    from lbaudiodetective_tpu.io.au import write_au
-    from lbaudiodetective_tpu.io.g711 import encode_mulaw
-    from lbaudiodetective_tpu.io.wav import write_wav
+    from lbaudiodetective.io.aiff import write_aiff
+    from lbaudiodetective.io.au import write_au
+    from lbaudiodetective.io.g711 import encode_mulaw
+    from lbaudiodetective.io.wav import write_wav
 
     rng = np.random.default_rng(99)
     x = (0.4 * np.sin(2 * np.pi * 440.0 *
@@ -221,7 +221,7 @@ def test_native_decoder_fuzz_subprocess(tmp_path):
     import subprocess
     import sys
 
-    from lbaudiodetective_tpu.io.native import binding
+    from lbaudiodetective.io.native import binding
 
     if not binding.available():
         pytest.skip("native decoder not built")
@@ -229,8 +229,8 @@ def test_native_decoder_fuzz_subprocess(tmp_path):
     fdir, count = _native_fuzz_corpus(tmp_path)
     worker = (
         "import pathlib, sys\n"
-        "from lbaudiodetective_tpu.io.native import binding\n"
-        "from lbaudiodetective_tpu.errors import AudioDetectiveError\n"
+        "from lbaudiodetective.io.native import binding\n"
+        "from lbaudiodetective.errors import AudioDetectiveError\n"
         "import numpy as np\n"
         "fdir = pathlib.Path(sys.argv[1])\n"
         "n = ok = 0\n"
@@ -261,8 +261,8 @@ def test_fuzz_decode_audio_file_level(tmp_path):
     resample output (corrupt sample rates are rejected by range)."""
     import struct
 
-    from lbaudiodetective_tpu.errors import AudioDetectiveError
-    from lbaudiodetective_tpu.io.wav import write_wav
+    from lbaudiodetective.errors import AudioDetectiveError
+    from lbaudiodetective.io.wav import write_wav
 
     rng = np.random.default_rng(7)
     x = (0.4 * np.sin(2 * np.pi * 440.0 *

@@ -7,11 +7,11 @@ import struct
 import numpy as np
 import pytest
 
-from lbaudiodetective_tpu.errors import UnsupportedFormatError
-from lbaudiodetective_tpu.io.g711 import (ALAW_TABLE, MULAW_TABLE,
-                                          decode_alaw, decode_mulaw,
-                                          encode_alaw, encode_mulaw)
-from lbaudiodetective_tpu.io.wav import decode_ima_adpcm_mono, read_wav
+from lbaudiodetective.errors import UnsupportedFormatError
+from lbaudiodetective.io.g711 import (ALAW_TABLE, MULAW_TABLE,
+                                      decode_alaw, decode_mulaw,
+                                      encode_alaw, encode_mulaw)
+from lbaudiodetective.io.wav import decode_ima_adpcm_mono, read_wav
 
 
 def _sine(n=4096, rate=8000.0, f=440.0, amp=0.5):
@@ -95,7 +95,7 @@ def _ima_encode_mono(x, block_align=256):
     """Scalar reference IMA/DVI encoder producing standard WAV blocks
     (int16 LE predictor + step index header; header IS the first sample;
     low nibble first).  Independent of the vectorised decoder under test."""
-    from lbaudiodetective_tpu.io.caf import IMA_INDEX_TABLE, IMA_STEP_TABLE
+    from lbaudiodetective.io.caf import IMA_INDEX_TABLE, IMA_STEP_TABLE
 
     pcm = np.clip(np.round(np.asarray(x, np.float64) * 32768.0),
                   -32768, 32767).astype(np.int32)
@@ -144,7 +144,7 @@ def _ima_encode_mono(x, block_align=256):
 
 def _ima_decode_scalar(data, block_align, total_frames):
     """Scalar reference decoder (independent of the vectorised one)."""
-    from lbaudiodetective_tpu.io.caf import IMA_INDEX_TABLE, IMA_STEP_TABLE
+    from lbaudiodetective.io.caf import IMA_INDEX_TABLE, IMA_STEP_TABLE
 
     out = []
     for b0 in range(0, (len(data) // block_align) * block_align, block_align):
@@ -220,8 +220,8 @@ def _caf_g711(tmp_path, fmt: str, payload: bytes, rate=8000.0, channels=1,
 
 
 def test_caf_ulaw_alaw_numpy_and_native(tmp_path):
-    from lbaudiodetective_tpu.io.caf import read_caf
-    from lbaudiodetective_tpu.io.native import binding as native
+    from lbaudiodetective.io.caf import read_caf
+    from lbaudiodetective.io.native import binding as native
 
     x = _sine(1500)
     for fmt, enc, dec in (("ulaw", encode_mulaw, decode_mulaw),
@@ -239,7 +239,7 @@ def test_caf_ulaw_alaw_numpy_and_native(tmp_path):
 
 def test_aifc_ulaw(tmp_path):
     from tests.test_aiff import _aifc
-    from lbaudiodetective_tpu.io.aiff import read_aiff
+    from lbaudiodetective.io.aiff import read_aiff
 
     x = _sine(800)
     payload = encode_mulaw(x)
@@ -258,8 +258,8 @@ def test_corpus_clip_via_mulaw_wav_still_identifies(tmp_path):
     lands in the blur range — well above any wrong-bird score — rather
     than at the exact-crop ~96."""
     from tests.conftest import corpus_path
-    from lbaudiodetective_tpu.io.caf import read_caf
-    from lbaudiodetective_tpu.models.detective import AudioDetective
+    from lbaudiodetective.io.caf import read_caf
+    from lbaudiodetective.models.detective import AudioDetective
 
     samples, rate = read_caf(corpus_path("Wren_eql"))
     p = str(tmp_path / "wren_eql_ulaw.wav")

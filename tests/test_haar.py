@@ -3,8 +3,8 @@ reference test's 3x4 example (LBAudioDetectiveTests.m:157-176)."""
 
 import numpy as np
 
-from lbaudiodetective_tpu.oracle.pipeline import haar_decompose_array, haar_decompose_frame
-from lbaudiodetective_tpu.ops.haar import haar_2d, haar_matrix
+from lbaudiodetective.oracle.pipeline import haar_decompose_array, haar_decompose_frame
+from lbaudiodetective.ops.haar import haar_2d, haar_matrix
 
 
 def test_haar_array_energy_preserved():

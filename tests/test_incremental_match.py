@@ -6,11 +6,11 @@ over query subfingerprints matches _both_orientation_scores' roll loop."""
 import numpy as np
 import pytest
 
-from lbaudiodetective_tpu.config import FingerprintConfig
-from lbaudiodetective_tpu.models.fingerprint import Fingerprint
-from lbaudiodetective_tpu.models.library import FingerprintLibrary
-from lbaudiodetective_tpu.ops.match import match_one_vs_many_padded
-from lbaudiodetective_tpu.streaming.incremental import (
+from lbaudiodetective.config import FingerprintConfig
+from lbaudiodetective.models.fingerprint import Fingerprint
+from lbaudiodetective.models.library import FingerprintLibrary
+from lbaudiodetective.ops.match import match_one_vs_many_padded
+from lbaudiodetective.streaming.incremental import (
     IncrementalLibraryMatcher)
 
 
@@ -25,7 +25,7 @@ def _full_scores(lib, qpos, qneg, n, s_pad, comparison_range=0):
     import jax
     import jax.numpy as jnp
 
-    from lbaudiodetective_tpu.utils import packing
+    from lbaudiodetective.utils import packing
 
     lp = packing.unpack_bits(np.asarray(lib.pos_words), lib.pairs)
     ln = packing.unpack_bits(np.asarray(lib.neg_words), lib.pairs)
@@ -162,7 +162,7 @@ def test_session_pool_bitwise_equal_async():
     """StreamSessionPool: asynchronous per-slot posts folded in ONE batched
     dispatch score bitwise equal to dedicated per-session matchers fed the
     same increments, through uneven schedules, slot reuse and growth."""
-    from lbaudiodetective_tpu.streaming.incremental import StreamSessionPool
+    from lbaudiodetective.streaming.incremental import StreamSessionPool
 
     rng = np.random.default_rng(31)
     pairs = 100
@@ -240,10 +240,10 @@ def test_session_pool_sharded_library():
     single-device reference matcher."""
     import jax
 
-    from lbaudiodetective_tpu.parallel.mesh import make_mesh
-    from lbaudiodetective_tpu.parallel.sharded_library import (
+    from lbaudiodetective.parallel.mesh import make_mesh
+    from lbaudiodetective.parallel.sharded_library import (
         ShardedFingerprintLibrary)
-    from lbaudiodetective_tpu.streaming.incremental import StreamSessionPool
+    from lbaudiodetective.streaming.incremental import StreamSessionPool
 
     assert len(jax.devices()) == 8
     rng = np.random.default_rng(61)
@@ -321,8 +321,8 @@ def test_incremental_state_roundtrip_sharded(tmp_path):
     checkpoint re-places onto the mesh with the library sharding)."""
     import jax
 
-    from lbaudiodetective_tpu.parallel.mesh import make_mesh
-    from lbaudiodetective_tpu.parallel.sharded_library import (
+    from lbaudiodetective.parallel.mesh import make_mesh
+    from lbaudiodetective.parallel.sharded_library import (
         ShardedFingerprintLibrary)
 
     assert len(jax.devices()) == 8
@@ -352,8 +352,8 @@ def test_serving_session_persistence(decoded_corpus, default_config,
     """A restarted IdentificationService reloads checkpointed sessions and
     answers the next post exactly as the uninterrupted server would."""
     from tests.conftest import BIRDS
-    from lbaudiodetective_tpu.ops.extract import extract_fingerprint
-    from lbaudiodetective_tpu.serving import IdentificationService
+    from lbaudiodetective.ops.extract import extract_fingerprint
+    from lbaudiodetective.serving import IdentificationService
 
     fps = []
     for b in BIRDS[:2]:
@@ -397,8 +397,8 @@ def test_streaming_identifier_incremental_mode(decoded_corpus,
     per-stream winners and scores as the full-rematch mode on real corpus
     streams."""
     from tests.conftest import BIRDS
-    from lbaudiodetective_tpu.ops.extract import extract_fingerprint
-    from lbaudiodetective_tpu.streaming import StreamingIdentifier
+    from lbaudiodetective.ops.extract import extract_fingerprint
+    from lbaudiodetective.streaming import StreamingIdentifier
 
     fps = []
     for bird in BIRDS[:4]:
@@ -440,8 +440,8 @@ def test_incremental_sharded_library_equals_plain():
     every tick — the update is pure data parallelism along L."""
     import jax
 
-    from lbaudiodetective_tpu.parallel.mesh import make_mesh
-    from lbaudiodetective_tpu.parallel.sharded_library import (
+    from lbaudiodetective.parallel.mesh import make_mesh
+    from lbaudiodetective.parallel.sharded_library import (
         ShardedFingerprintLibrary)
 
     assert len(jax.devices()) == 8
@@ -512,11 +512,11 @@ def test_streaming_identifier_incremental_sharded(decoded_corpus,
     import jax
 
     from tests.conftest import BIRDS
-    from lbaudiodetective_tpu.ops.extract import extract_fingerprint
-    from lbaudiodetective_tpu.parallel.mesh import make_mesh
-    from lbaudiodetective_tpu.parallel.sharded_library import (
+    from lbaudiodetective.ops.extract import extract_fingerprint
+    from lbaudiodetective.parallel.mesh import make_mesh
+    from lbaudiodetective.parallel.sharded_library import (
         ShardedFingerprintLibrary)
-    from lbaudiodetective_tpu.streaming import StreamingIdentifier
+    from lbaudiodetective.streaming import StreamingIdentifier
 
     assert len(jax.devices()) == 8
     fps = []

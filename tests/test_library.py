@@ -4,9 +4,9 @@ persistence (corpus-backed)."""
 import numpy as np
 import pytest
 
-from lbaudiodetective_tpu.config import FingerprintConfig
-from lbaudiodetective_tpu.models.detective import AudioDetective
-from lbaudiodetective_tpu.models.library import FingerprintLibrary
+from lbaudiodetective.config import FingerprintConfig
+from lbaudiodetective.models.detective import AudioDetective
+from lbaudiodetective.models.library import FingerprintLibrary
 from tests.conftest import BIRDS, corpus_path
 
 
@@ -45,7 +45,7 @@ def test_library_load_honours_stored_length(tmp_path):
     """A config-less load of a library built at a non-default
     subfingerprint length must adopt the stored length instead of silently
     matching over the default pair count."""
-    from lbaudiodetective_tpu.models.fingerprint import FingerprintBuilder
+    from lbaudiodetective.models.fingerprint import FingerprintBuilder
 
     cfg = FingerprintConfig(subfingerprint_length=128)
     rng = np.random.default_rng(3)
@@ -69,7 +69,7 @@ def test_library_extend_matches_fresh(corpus_library):
     fingerprints (packed entries, counts, pairs, scores)."""
     import numpy as np
 
-    from lbaudiodetective_tpu.models.library import FingerprintLibrary
+    from lbaudiodetective.models.library import FingerprintLibrary
 
     det, fps, lib = corpus_library
     base = FingerprintLibrary.from_fingerprints(fps[:2], lib.config)
@@ -124,7 +124,7 @@ def test_search_synthetic_recall():
     """Recall on a synthetic 64-entry library of perturbed variants: the
     true (least-perturbed) entry must survive a stride-4/range-64 coarse
     pass at shortlist=8, across chunked coarse dispatches."""
-    from lbaudiodetective_tpu.models.fingerprint import Fingerprint
+    from lbaudiodetective.models.fingerprint import Fingerprint
 
     rng = np.random.default_rng(7)
     s, pairs = 48, 100

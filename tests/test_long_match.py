@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from lbaudiodetective_tpu.ops.match import match_fingerprints, match_long_padded
-from lbaudiodetective_tpu.oracle.pipeline import oracle_match_fingerprints
+from lbaudiodetective.ops.match import match_fingerprints, match_long_padded
+from lbaudiodetective.oracle.pipeline import oracle_match_fingerprints
 from tests.test_match import random_fp
 
 

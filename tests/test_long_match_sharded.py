@@ -13,9 +13,9 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from lbaudiodetective_tpu.ops.match import (
+from lbaudiodetective.ops.match import (
     match_long_hierarchical, match_long_padded)
-from lbaudiodetective_tpu.parallel.long_match import match_long_time_sharded
+from lbaudiodetective.parallel.long_match import match_long_time_sharded
 
 PAIRS = 128  # pair-plane width (default config: ceil(200/2) padded to 128)
 
@@ -72,7 +72,7 @@ def test_time_sharded_matches_blockwise_10k(mesh8):
 
 def test_time_sharded_matches_oracle_small(mesh8):
     """Oracle chain on a size where the scalar oracle is affordable."""
-    from lbaudiodetective_tpu.oracle.pipeline import oracle_match_fingerprints
+    from lbaudiodetective.oracle.pipeline import oracle_match_fingerprints
 
     rng = np.random.default_rng(11)
     n1, n2, at = 1_200, 24, 831

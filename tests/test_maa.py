@@ -11,11 +11,11 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from lbaudiodetective_tpu.io.decode import decode_audio_file_raw
-from lbaudiodetective_tpu.models.maa import (CATEGORY_HZ, N_CATEGORIES,
-                                             WINDOW, maa_fingerprint_file,
-                                             maa_match_count,
-                                             maa_subfingerprints)
+from lbaudiodetective.io.decode import decode_audio_file_raw
+from lbaudiodetective.models.maa import (CATEGORY_HZ, N_CATEGORIES,
+                                         WINDOW, maa_fingerprint_file,
+                                         maa_match_count,
+                                         maa_subfingerprints)
 from tests.conftest import BIRDS, CORPUS
 
 

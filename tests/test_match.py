@@ -1,10 +1,10 @@
-"""Matcher: MXU matmul formulation vs the scalar oracle (quirks Q10/Q11)."""
+"""Matcher: matmul formulation vs the scalar oracle (quirks Q10/Q11)."""
 
 import numpy as np
 
-from lbaudiodetective_tpu.oracle.pipeline import (
+from lbaudiodetective.oracle.pipeline import (
     compare_subfingerprints, oracle_match_fingerprints)
-from lbaudiodetective_tpu.ops.match import match_fingerprints, match_one_vs_many_padded
+from lbaudiodetective.ops.match import match_fingerprints, match_one_vs_many_padded
 
 
 def random_fp(rng, n_sub, pairs=100, p_zero=0.2):

@@ -3,11 +3,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from lbaudiodetective_tpu.ops.match import match_one_vs_many_padded
-from lbaudiodetective_tpu.ops.match_packed import (
+from lbaudiodetective.ops.match import match_one_vs_many_padded
+from lbaudiodetective.ops.match_packed import (
     match_one_vs_many_packed, pack_bits_device)
-from lbaudiodetective_tpu.oracle.pipeline import oracle_match_fingerprints
-from lbaudiodetective_tpu.utils import packing
+from lbaudiodetective.oracle.pipeline import oracle_match_fingerprints
+from lbaudiodetective.utils import packing
 from tests.test_match import random_fp
 
 

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from lbaudiodetective_tpu.io import caf
-from lbaudiodetective_tpu.io.native import binding as native
-from lbaudiodetective_tpu.io.resample import design_polyphase_bank
+from lbaudiodetective.io import caf
+from lbaudiodetective.io.native import binding as native
+from lbaudiodetective.io.resample import design_polyphase_bank
 from tests.conftest import corpus_path
 
 pytestmark = pytest.mark.skipif(not native.available(),
@@ -22,7 +22,7 @@ def test_native_decode_matches_numpy(name):
 
 
 def test_native_resample_matches_numpy():
-    from lbaudiodetective_tpu.io.resample import polyphase_plan
+    from lbaudiodetective.io.resample import polyphase_plan
 
     rng = np.random.default_rng(40)
     x = (rng.standard_normal(44100) * 0.3).astype(np.float32)
@@ -55,9 +55,9 @@ def _tone(n=2048, rate=8000.0):
 def test_native_read_audio_dispatches_all_containers(tmp_path):
     """lbad_read_audio decodes WAV/AIFF/AU/CAF bit-identically to the NumPy
     readers (mono integer payloads: exact)."""
-    from lbaudiodetective_tpu.io.aiff import read_aiff, write_aiff
-    from lbaudiodetective_tpu.io.au import read_au, write_au
-    from lbaudiodetective_tpu.io.wav import read_wav, write_wav
+    from lbaudiodetective.io.aiff import read_aiff, write_aiff
+    from lbaudiodetective.io.au import read_au, write_au
+    from lbaudiodetective.io.wav import read_wav, write_wav
 
     x = _tone()
     cases = [("t.wav", write_wav, read_wav), ("t.aiff", write_aiff, read_aiff),
@@ -80,9 +80,9 @@ def test_native_read_audio_codec_matrix(tmp_path):
     """Float/G.711/24-bit payloads across containers: native == NumPy."""
     import struct
 
-    from lbaudiodetective_tpu.io.au import read_au
-    from lbaudiodetective_tpu.io.g711 import encode_mulaw
-    from lbaudiodetective_tpu.io.wav import read_wav
+    from lbaudiodetective.io.au import read_au
+    from lbaudiodetective.io.g711 import encode_mulaw
+    from lbaudiodetective.io.wav import read_wav
 
     x = _tone(512)
     # WAV float32.
@@ -109,7 +109,7 @@ def test_native_read_audio_codec_matrix(tmp_path):
     open(p, "wb").write(b"RIFF" + struct.pack("<I", len(body)) + body)
     np.testing.assert_array_equal(native.read_audio(p)[0], read_wav(p)[0])
     # AU 24-bit BE + f64 + A-law.
-    from lbaudiodetective_tpu.io.au import write_au
+    from lbaudiodetective.io.au import write_au
 
     for enc, name in [(1, "g1.au"), (27, "g27.au")]:
         p = str(tmp_path / name)
@@ -133,7 +133,7 @@ def test_native_read_audio_stereo_close_to_numpy(tmp_path):
     equal to 1 ulp, not guaranteed bit-exact."""
     import struct
 
-    from lbaudiodetective_tpu.io.wav import read_wav
+    from lbaudiodetective.io.wav import read_wav
 
     x = _tone(256)
     st = np.stack([x, 0.5 * x], axis=1).ravel()
@@ -153,8 +153,8 @@ def test_stale_prebuilt_so_triggers_rebuild(tmp_path, monkeypatch):
     import pathlib
     import shutil
 
-    from lbaudiodetective_tpu.io.au import write_au
-    from lbaudiodetective_tpu.io.native import binding as b
+    from lbaudiodetective.io.au import write_au
+    from lbaudiodetective.io.native import binding as b
 
     src = pathlib.Path(b.__file__).resolve().parent
     work = tmp_path / "native"
@@ -183,7 +183,7 @@ def test_native_read_audio_falls_back_for_adpcm(tmp_path):
     decodes it (fallback path)."""
     import struct
 
-    from lbaudiodetective_tpu.io.decode import decode_audio_file
+    from lbaudiodetective.io.decode import decode_audio_file
 
     # Minimal 1-block mono IMA ADPCM WAV (predictor 1000, all-zero nibbles).
     block = struct.pack("<hBB", 1000, 0, 0) + b"\x00" * 32

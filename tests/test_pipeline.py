@@ -3,10 +3,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from lbaudiodetective_tpu.config import FingerprintConfig
-from lbaudiodetective_tpu.ops.extract import required_padded_length
-from lbaudiodetective_tpu.ops.match import match_one_vs_many_padded
-from lbaudiodetective_tpu.parallel.pipeline import PipelinedIdentifier
+from lbaudiodetective.config import FingerprintConfig
+from lbaudiodetective.ops.extract import required_padded_length
+from lbaudiodetective.ops.match import match_one_vs_many_padded
+from lbaudiodetective.parallel.pipeline import PipelinedIdentifier
 from tests.test_match import random_fp
 
 
@@ -59,8 +59,8 @@ def test_device_split_pipeline_equals_fused():
     its own submesh."""
     import jax
 
-    from lbaudiodetective_tpu.ops.extract import extract_fingerprint_padded
-    from lbaudiodetective_tpu.parallel.pipeline import DeviceSplitPipeline
+    from lbaudiodetective.ops.extract import extract_fingerprint_padded
+    from lbaudiodetective.parallel.pipeline import DeviceSplitPipeline
 
     devs = jax.devices()
     assert len(devs) == 8

@@ -4,7 +4,7 @@ import pathlib
 
 import pytest
 
-from lbaudiodetective_tpu.utils import profiling
+from lbaudiodetective.utils import profiling
 
 
 def test_stage_timers_accumulate():

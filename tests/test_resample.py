@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from lbaudiodetective_tpu.io.resample import (
+from lbaudiodetective.io.resample import (
     design_polyphase_bank, polyphase_plan, resample_rational)
 
 

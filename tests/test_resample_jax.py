@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from lbaudiodetective_tpu.io.resample import (
+from lbaudiodetective.io.resample import (
     design_polyphase_bank, polyphase_plan, resample_rational_jax)
 
 

@@ -17,18 +17,16 @@ runs the wider (stride, range, shortlist) sweep behind CALIBRATION.md.
 import numpy as np
 import pytest
 
-from lbaudiodetective_tpu.config import FingerprintConfig
-from lbaudiodetective_tpu.models.fingerprint import Fingerprint
-from lbaudiodetective_tpu.models.library import FingerprintLibrary
-from lbaudiodetective_tpu.ops.extract import extract_fingerprint
+from lbaudiodetective.config import FingerprintConfig
+from lbaudiodetective.models.fingerprint import Fingerprint
+from lbaudiodetective.models.library import FingerprintLibrary
+from lbaudiodetective.ops.extract import extract_fingerprint
 from tests.conftest import BIRDS, CACHE
 
 
-def _corpus_fp(decoded_corpus, config, name):
+def _corpus_fp(decoded_corpus, config, key, name):
     """JAX fingerprint, shared disk cache with test_corpus_identification."""
-    from tests.conftest import config_cache_key
-
-    cache_file = CACHE / f"jaxfp_{config_cache_key()}_{name}.npz"
+    cache_file = CACHE / f"jaxfp_{key}_{name}.npz"
     if cache_file.exists():
         z = np.load(cache_file)
         return Fingerprint(z["pos"], z["neg"])
@@ -49,11 +47,12 @@ def _random_fp(rng, n, pairs=100):
 
 
 @pytest.fixture(scope="module")
-def planted(decoded_corpus, default_config):
+def planted(decoded_corpus, default_config, fixture_key):
     """(library, queries) — 10 enrolled birds + synthetic distractors,
     with near-duplicate queries labelled by their true entry index."""
     rng = np.random.default_rng(17)
-    birds = [_corpus_fp(decoded_corpus, default_config, b) for b in BIRDS]
+    birds = [_corpus_fp(decoded_corpus, default_config, fixture_key, b)
+             for b in BIRDS]
     lens = [f.num_subfingerprints for f in birds]
     distractors = [
         _random_fp(rng, int(rng.integers(min(lens), max(lens) + 1)))
@@ -66,7 +65,7 @@ def planted(decoded_corpus, default_config):
         for t, b in enumerate(BIRDS):
             queries.append((b + suffix, t,
                             _corpus_fp(decoded_corpus, default_config,
-                                       b + suffix)))
+                                       fixture_key, b + suffix)))
     # Subfingerprint-offset crops (k % 4 != 0 = the phase failure regime).
     for t in (0, 4):
         fp = birds[t]
@@ -170,8 +169,8 @@ def test_sharded_search_zero_misses(planted):
     survival at the same shortlist."""
     import jax
 
-    from lbaudiodetective_tpu.parallel.mesh import make_mesh
-    from lbaudiodetective_tpu.parallel.sharded_library import (
+    from lbaudiodetective.parallel.mesh import make_mesh
+    from lbaudiodetective.parallel.sharded_library import (
         ShardedFingerprintLibrary)
 
     assert len(jax.devices()) == 8

@@ -8,16 +8,16 @@ import threading
 import numpy as np
 import pytest
 
-from lbaudiodetective_tpu.config import FingerprintConfig
-from lbaudiodetective_tpu.models.fingerprint import Fingerprint
-from lbaudiodetective_tpu.models.library import FingerprintLibrary
-from lbaudiodetective_tpu.serving import IdentificationService, make_server
+from lbaudiodetective.config import FingerprintConfig
+from lbaudiodetective.models.fingerprint import Fingerprint
+from lbaudiodetective.models.library import FingerprintLibrary
+from lbaudiodetective.serving import IdentificationService, make_server
 from tests.conftest import BIRDS, corpus_path
 
 
 @pytest.fixture(scope="module")
 def service(decoded_corpus, default_config):
-    from lbaudiodetective_tpu.ops.extract import extract_fingerprint
+    from lbaudiodetective.ops.extract import extract_fingerprint
 
     fps = []
     for b in BIRDS[:4]:
@@ -86,7 +86,7 @@ def test_microbatched_identify_equals_unbatched(decoded_corpus, default_config):
     """Concurrent identify requests inside the batch window must be served
     from ONE extraction dispatch with results identical to the unbatched
     path."""
-    from lbaudiodetective_tpu.ops.extract import extract_fingerprint
+    from lbaudiodetective.ops.extract import extract_fingerprint
 
     fps = []
     for b in BIRDS[:4]:
@@ -126,7 +126,7 @@ def test_microbatched_identify_equals_unbatched(decoded_corpus, default_config):
 
 def test_microbatched_identify_single_request(decoded_corpus, default_config):
     """A lone request inside the window still completes (leader timeout)."""
-    from lbaudiodetective_tpu.ops.extract import extract_fingerprint
+    from lbaudiodetective.ops.extract import extract_fingerprint
 
     pos, neg, n = extract_fingerprint(decoded_corpus[BIRDS[0]], default_config)
     lib = FingerprintLibrary.from_fingerprints(
@@ -143,7 +143,7 @@ def test_microbatch_overflow_and_failure_isolation(decoded_corpus,
                                                    default_config):
     """A burst larger than max_batch is processed in max_batch chunks (no
     follower hangs), and a failing clip fails only its own request."""
-    from lbaudiodetective_tpu.ops.extract import extract_fingerprint
+    from lbaudiodetective.ops.extract import extract_fingerprint
 
     pos, neg, n = extract_fingerprint(decoded_corpus[BIRDS[0]], default_config)
     lib = FingerprintLibrary.from_fingerprints(
@@ -174,7 +174,7 @@ def test_microbatch_overflow_and_failure_isolation(decoded_corpus,
     # valid requests succeed.
     import struct
 
-    from lbaudiodetective_tpu.io.wav import write_wav
+    from lbaudiodetective.io.wav import write_wav
     import tempfile, pathlib, os
 
     tiny = np.zeros(64, np.float32)
@@ -207,8 +207,8 @@ def test_http_identify_with_batching(decoded_corpus, default_config):
     micro-batcher return correct per-request results."""
     import http.client
 
-    from lbaudiodetective_tpu.ops.extract import extract_fingerprint
-    from lbaudiodetective_tpu.serving import make_server
+    from lbaudiodetective.ops.extract import extract_fingerprint
+    from lbaudiodetective.serving import make_server
 
     fps = []
     for b in BIRDS[:3]:
@@ -252,7 +252,7 @@ def test_search_mode_topk_responses(decoded_corpus, default_config):
     two-stage search: same winner/score as brute force, 'top' list instead
     of the full per-track scores dict — in both the unbatched and the
     micro-batched paths."""
-    from lbaudiodetective_tpu.ops.extract import extract_fingerprint
+    from lbaudiodetective.ops.extract import extract_fingerprint
 
     fps = []
     for b in BIRDS[:4]:
@@ -300,8 +300,8 @@ def test_static_shape_batching_identical(decoded_corpus, default_config):
     """n_sub_cap pins every batched extraction to one static shape (batch
     padded to max_batch, fixed subfingerprint bucket): responses must be
     identical to the dynamic-shape batched path for in-cap clips."""
-    from lbaudiodetective_tpu.ops.extract import (extract_fingerprint,
-                                                  extract_fingerprint_batch)
+    from lbaudiodetective.ops.extract import (extract_fingerprint,
+                                              extract_fingerprint_batch)
 
     fps = []
     for b in BIRDS[:4]:
@@ -343,7 +343,7 @@ def test_extract_batch_static_shapes_bitexact(decoded_corpus, default_config):
     """extract_fingerprint_batch(pad_batch_to, n_sub_cap): identical planes
     for in-cap clips; clips over the cap truncate to exactly the capped
     prefix of their dynamic extraction."""
-    from lbaudiodetective_tpu.ops.extract import extract_fingerprint_batch
+    from lbaudiodetective.ops.extract import extract_fingerprint_batch
 
     clips = [decoded_corpus[b] for b in BIRDS[:3]]
     pos_d, neg_d, n_d = extract_fingerprint_batch(clips, default_config)
@@ -367,8 +367,8 @@ def test_serving_soak_mixed_load(decoded_corpus, default_config):
     """Soak the micro-batched service with interleaved valid and garbage
     payloads from many threads: every request completes (result or typed
     error), batches never strand a follower, and the pending queue drains."""
-    from lbaudiodetective_tpu.ops.extract import extract_fingerprint
-    from lbaudiodetective_tpu import errors
+    from lbaudiodetective.ops.extract import extract_fingerprint
+    from lbaudiodetective import errors
 
     fps = []
     for b in BIRDS[:3]:
@@ -485,7 +485,7 @@ def test_stream_session_incremental_identify(server):
 
 
 def test_stream_session_errors_and_eviction(decoded_corpus, default_config):
-    from lbaudiodetective_tpu.ops.extract import extract_fingerprint
+    from lbaudiodetective.ops.extract import extract_fingerprint
 
     fps = []
     for b in BIRDS[:2]:
@@ -499,7 +499,7 @@ def test_stream_session_errors_and_eviction(decoded_corpus, default_config):
     # Unknown session.
     import pytest as _pytest
 
-    from lbaudiodetective_tpu import errors as _errors
+    from lbaudiodetective import errors as _errors
 
     with _pytest.raises(_errors.InvalidArgumentError):
         svc.stream_update("nope", b"01")

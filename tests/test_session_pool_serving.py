@@ -8,10 +8,10 @@ import threading
 import numpy as np
 import pytest
 
-from lbaudiodetective_tpu.config import FingerprintConfig
-from lbaudiodetective_tpu.models.fingerprint import Fingerprint
-from lbaudiodetective_tpu.models.library import FingerprintLibrary
-from lbaudiodetective_tpu.serving import IdentificationService
+from lbaudiodetective.config import FingerprintConfig
+from lbaudiodetective.models.fingerprint import Fingerprint
+from lbaudiodetective.models.library import FingerprintLibrary
+from lbaudiodetective.serving import IdentificationService
 
 
 def _lib(rng, n=4, s=6, pairs=100):

@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from lbaudiodetective_tpu.config import FingerprintConfig
-from lbaudiodetective_tpu.ops.extract import extract_fingerprint_padded, required_padded_length
-from lbaudiodetective_tpu.ops.match import match_one_vs_many_padded
-from lbaudiodetective_tpu.oracle.pipeline import oracle_match_fingerprints
-from lbaudiodetective_tpu.parallel import (
+from lbaudiodetective.config import FingerprintConfig
+from lbaudiodetective.ops.extract import extract_fingerprint_padded, required_padded_length
+from lbaudiodetective.ops.match import match_one_vs_many_padded
+from lbaudiodetective.oracle.pipeline import oracle_match_fingerprints
+from lbaudiodetective.parallel import (
     extract_data_parallel, make_mesh, match_library_sharded, ring_all_pairs_scores)
 from tests.test_match import random_fp
 

@@ -6,10 +6,10 @@ import numpy as np
 import jax
 import pytest
 
-from lbaudiodetective_tpu.models.fingerprint import Fingerprint
-from lbaudiodetective_tpu.models.library import FingerprintLibrary
-from lbaudiodetective_tpu.parallel.mesh import make_mesh
-from lbaudiodetective_tpu.parallel.sharded_library import (
+from lbaudiodetective.models.fingerprint import Fingerprint
+from lbaudiodetective.models.library import FingerprintLibrary
+from lbaudiodetective.parallel.mesh import make_mesh
+from lbaudiodetective.parallel.sharded_library import (
     ShardedFingerprintLibrary)
 from tests.test_match import random_fp
 
@@ -152,7 +152,7 @@ def test_save_load_sharded_roundtrip(mesh, tmp_path):
     re2 = ShardedFingerprintLibrary.load_sharded(d2, mesh, lib.config)
     np.testing.assert_array_equal(re2.match(fps[3]), slib.match(fps[3]))
     # Parameter-hash guard still applies.
-    from lbaudiodetective_tpu.config import FingerprintConfig
+    from lbaudiodetective.config import FingerprintConfig
     with pytest.raises(ValueError):
         ShardedFingerprintLibrary.load_sharded(
             d, mesh, FingerprintConfig(subfingerprint_length=100))
@@ -162,8 +162,8 @@ def test_serving_edge_with_sharded_library(mesh, tmp_path):
     """IdentificationService duck-types over the sharded library: identical
     responses to the single-device service on a real corpus payload."""
     from tests.conftest import CORPUS
-    from lbaudiodetective_tpu.models.detective import AudioDetective
-    from lbaudiodetective_tpu.serving import IdentificationService
+    from lbaudiodetective.models.detective import AudioDetective
+    from lbaudiodetective.serving import IdentificationService
 
     det = AudioDetective()
     names = ["BlackBird", "Wren"]
@@ -191,7 +191,7 @@ def test_streaming_sessions_over_sharded_library(mesh):
     """Serving-edge live-recognition sessions against a mesh-sharded
     library: running results must equal the same session replayed against
     the single-device service."""
-    from lbaudiodetective_tpu.serving import IdentificationService
+    from lbaudiodetective.serving import IdentificationService
 
     rng = np.random.default_rng(83)
     fps = _fps(rng, [6, 9, 4, 11, 7, 10, 3])       # 7: pads the 4-way axis
@@ -226,7 +226,7 @@ def test_stream_sessions_concurrent_threads():
     and the session dict are thread-safe."""
     import threading
 
-    from lbaudiodetective_tpu.serving import IdentificationService
+    from lbaudiodetective.serving import IdentificationService
 
     rng = np.random.default_rng(84)
     fps = _fps(rng, [8, 8, 8, 8, 8, 8, 8, 8])

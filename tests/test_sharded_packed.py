@@ -8,16 +8,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from lbaudiodetective_tpu.ops.match import match_one_vs_many_padded
-from lbaudiodetective_tpu.oracle.pipeline import oracle_match_fingerprints
-from lbaudiodetective_tpu.parallel.dedup import ring_dedup_topk
-from lbaudiodetective_tpu.parallel.mesh import make_mesh
-from lbaudiodetective_tpu.parallel.sharded import (match_library_sharded,
-                                                   ring_all_pairs_scores)
-from lbaudiodetective_tpu.parallel.sharded_packed import (
+from lbaudiodetective.ops.match import match_one_vs_many_padded
+from lbaudiodetective.oracle.pipeline import oracle_match_fingerprints
+from lbaudiodetective.parallel.dedup import ring_dedup_topk
+from lbaudiodetective.parallel.mesh import make_mesh
+from lbaudiodetective.parallel.sharded import (match_library_sharded,
+                                               ring_all_pairs_scores)
+from lbaudiodetective.parallel.sharded_packed import (
     match_library_sharded_packed, ring_all_pairs_scores_packed,
     ring_dedup_topk_packed)
-from lbaudiodetective_tpu.utils import packing
+from lbaudiodetective.utils import packing
 from tests.test_match import random_fp
 
 
@@ -149,11 +149,11 @@ def test_ring_dedup_packed_at_scale(mesh):
 def test_search_library_sharded_packed_equals_single_device(mesh):
     """Sharded two-stage search == FingerprintLibrary.search == brute force:
     per-shard shortlists merged host-side, indices globally offset."""
-    from lbaudiodetective_tpu.config import FingerprintConfig
-    from lbaudiodetective_tpu.models.fingerprint import Fingerprint
-    from lbaudiodetective_tpu.models.library import FingerprintLibrary
-    from lbaudiodetective_tpu.ops.match_packed import pack_bits_device
-    from lbaudiodetective_tpu.parallel.sharded_packed import (
+    from lbaudiodetective.config import FingerprintConfig
+    from lbaudiodetective.models.fingerprint import Fingerprint
+    from lbaudiodetective.models.library import FingerprintLibrary
+    from lbaudiodetective.ops.match_packed import pack_bits_device
+    from lbaudiodetective.parallel.sharded_packed import (
         search_library_sharded_packed)
 
     rng = np.random.default_rng(71)
@@ -181,7 +181,7 @@ def test_search_library_sharded_packed_equals_single_device(mesh):
     qn_full = np.zeros((s, pairs), np.uint8)
     qp_full[: sizes[5]] = query.pos
     qn_full[: sizes[5]] = query.neg
-    from lbaudiodetective_tpu.ops.match_packed import (
+    from lbaudiodetective.ops.match_packed import (
         phase_strided_query_planes)
 
     qcp, qcn, nc = phase_strided_query_planes(qp_full, qn_full, sizes[5],
@@ -212,9 +212,9 @@ def test_search_library_sharded_packed_equals_single_device(mesh):
 
 def test_search_many_equals_per_query():
     """Batched search_many == stacked single-query search (two-stage path)."""
-    from lbaudiodetective_tpu.config import FingerprintConfig
-    from lbaudiodetective_tpu.models.fingerprint import Fingerprint
-    from lbaudiodetective_tpu.models.library import FingerprintLibrary
+    from lbaudiodetective.config import FingerprintConfig
+    from lbaudiodetective.models.fingerprint import Fingerprint
+    from lbaudiodetective.models.library import FingerprintLibrary
 
     rng = np.random.default_rng(72)
     pairs, s_max, l = 100, 12, 48

@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from lbaudiodetective_tpu.config import FingerprintConfig
-from lbaudiodetective_tpu.oracle.pipeline import compute_band_energies, vdsp_packed_spectrum
-from lbaudiodetective_tpu.ops.spectral import band_energies, packed_spectrum
+from lbaudiodetective.config import FingerprintConfig
+from lbaudiodetective.oracle.pipeline import compute_band_energies, vdsp_packed_spectrum
+from lbaudiodetective.ops.spectral import band_energies, packed_spectrum
 
 
 def test_packed_spectrum_semantics_oracle():

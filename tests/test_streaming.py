@@ -4,10 +4,10 @@ offline extractor over the concatenated stream (SURVEY §4.5)."""
 import numpy as np
 import pytest
 
-from lbaudiodetective_tpu.config import FingerprintConfig
-from lbaudiodetective_tpu.io.decode import DecodedAudio
-from lbaudiodetective_tpu.ops.extract import extract_fingerprint
-from lbaudiodetective_tpu.streaming.runtime import StreamingDetective, StreamingExtractor
+from lbaudiodetective.config import FingerprintConfig
+from lbaudiodetective.io.decode import DecodedAudio
+from lbaudiodetective.ops.extract import extract_fingerprint
+from lbaudiodetective.streaming.runtime import StreamingDetective, StreamingExtractor
 
 
 def _offline_reference(audio_batch, cfg, n_rows_avail):
@@ -85,8 +85,8 @@ def test_streaming_sharded_over_data_axis():
     import jax
     from jax.sharding import Mesh
 
-    from lbaudiodetective_tpu.config import FingerprintConfig
-    from lbaudiodetective_tpu.streaming.runtime import StreamingExtractor
+    from lbaudiodetective.config import FingerprintConfig
+    from lbaudiodetective.streaming.runtime import StreamingExtractor
 
     cfg = FingerprintConfig(hop_domain="proc")
     mesh = Mesh(np.array(jax.devices()[:8]), ("data",))
@@ -112,8 +112,8 @@ def test_feed_pcm16_matches_float_feed():
     """int16 PCM ingest must produce identical bits to float feed of the
     same samples (device-side conversion is exact: i16/32768 in f32)."""
     import numpy as np
-    from lbaudiodetective_tpu.config import FingerprintConfig
-    from lbaudiodetective_tpu.streaming.runtime import StreamingExtractor
+    from lbaudiodetective.config import FingerprintConfig
+    from lbaudiodetective.streaming.runtime import StreamingExtractor
 
     cfg = FingerprintConfig()
     rng = np.random.default_rng(9)

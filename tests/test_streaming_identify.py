@@ -6,17 +6,17 @@ offline identification of the same audio."""
 import numpy as np
 import pytest
 
-from lbaudiodetective_tpu.config import FingerprintConfig
-from lbaudiodetective_tpu.models.fingerprint import Fingerprint
-from lbaudiodetective_tpu.models.library import FingerprintLibrary
-from lbaudiodetective_tpu.ops.match import match_one_vs_many_padded
-from lbaudiodetective_tpu.streaming import StreamingIdentifier
+from lbaudiodetective.config import FingerprintConfig
+from lbaudiodetective.models.fingerprint import Fingerprint
+from lbaudiodetective.models.library import FingerprintLibrary
+from lbaudiodetective.ops.match import match_one_vs_many_padded
+from lbaudiodetective.streaming import StreamingIdentifier
 from tests.conftest import BIRDS
 
 
 @pytest.fixture(scope="module")
 def corpus_lib(decoded_corpus, default_config):
-    from lbaudiodetective_tpu.ops.extract import extract_fingerprint
+    from lbaudiodetective.ops.extract import extract_fingerprint
 
     fps = []
     for b in BIRDS[:4]:
@@ -55,7 +55,7 @@ def test_streams_identify_their_bird(corpus_lib, decoded_corpus,
     # Final streaming scores == offline identification of the same audio
     # (the streaming extractor is bit-exact, so this must hold exactly).
     fps = ident.extractor.fingerprints()
-    from lbaudiodetective_tpu.utils import packing
+    from lbaudiodetective.utils import packing
 
     lib_pos = packing.unpack_bits(np.asarray(corpus_lib.pos_words),
                                   corpus_lib.pairs)
@@ -114,8 +114,8 @@ def test_streaming_identify_sharded_library(corpus_lib, decoded_corpus,
     streaming identifier on the same streams."""
     import jax
 
-    from lbaudiodetective_tpu.parallel.mesh import make_mesh
-    from lbaudiodetective_tpu.parallel.sharded_library import (
+    from lbaudiodetective.parallel.mesh import make_mesh
+    from lbaudiodetective.parallel.sharded_library import (
         ShardedFingerprintLibrary)
 
     assert len(jax.devices()) == 8

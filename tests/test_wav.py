@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from lbaudiodetective_tpu.io import caf
-from lbaudiodetective_tpu.io.decode import decode_audio_file
-from lbaudiodetective_tpu.io.wav import read_wav, write_wav
-from lbaudiodetective_tpu.models.detective import AudioDetective
+from lbaudiodetective.io import caf
+from lbaudiodetective.io.decode import decode_audio_file
+from lbaudiodetective.io.wav import read_wav, write_wav
+from lbaudiodetective.models.detective import AudioDetective
 from tests.conftest import corpus_path
 
 
